@@ -136,14 +136,14 @@ class RenderSession:
 
 
 INDEX_HTML = """<!doctype html>
-<html><head><title>pbrt-v3-IILE (TPU)</title><style>
+<html><head><title>pbrt-v3-IILE (JAX)</title><style>
 body{font-family:sans-serif;margin:2em;background:#111;color:#eee}
 input,button,select{font-size:1em;margin:.2em}
 .bar{height:14px;background:#333;width:420px;border-radius:7px}
 .fill{height:100%;background:#4a9;border-radius:7px;width:0}
 img{border:1px solid #444;max-width:90vw}
 </style></head><body>
-<h2>pbrt-v3-IILE &mdash; TPU renderer</h2>
+<h2>pbrt-v3-IILE &mdash; JAX renderer</h2>
 <div>
  Scene <input id=scene size=60 placeholder="/path/to/scene.pbrt">
  Indirect <input id=ind type=number value=4 style="width:4em">

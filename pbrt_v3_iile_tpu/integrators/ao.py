@@ -13,10 +13,10 @@ from ..ops import sampling as smp
 from ..utils import vecmath as vm
 
 
-def trace_ao(scene, o, d, key, cos_sample: bool = True, use_pallas=False):
+def trace_ao(scene, o, d, key, cos_sample: bool = True):
     N = o.shape[0]
     t_max = jnp.full(N, 1e30, jnp.float32)
-    hit = isect.intersect(scene, o, d, t_max, use_pallas=use_pallas)
+    hit = isect.intersect(scene, o, d, t_max)
     it = isect.make_interaction(scene, o, d, hit)
 
     n = vm.face_forward(it.ng, -d)
@@ -28,7 +28,7 @@ def trace_ao(scene, o, d, key, cos_sample: bool = True, use_pallas=False):
         w_local = smp.uniform_sample_hemisphere(u)
     wi = vm.to_world(w_local, t_f, b_f, n)
     o_sh = vm.offset_ray_origin(it.p, n, wi)
-    occ = isect.occluded(scene, o_sh, wi, t_max, use_pallas=use_pallas)
+    occ = isect.occluded(scene, o_sh, wi, t_max)
     # estimator: cossample -> v*cos/(cos/pi)/pi = v;
     # uniform -> v*cos/(1/2pi)/pi = 2*v*cos (ref: ao.cpp:101-118)
     cosw = jnp.abs(w_local[..., 2])

@@ -5,7 +5,7 @@ src/integrators/bdpt.cpp — GenerateCameraSubpath / GenerateLightSubpath,
 ConnectBDPT over all (s,t) strategies, and the MISWeight product-of-
 ratios formula with remap0 + delta-flag handling, bdpt.cpp:MISWeight).
 
-TPU-native restructuring, tuned for XLA compile cost as much as runtime:
+Wavefront restructuring, tuned for XLA compile cost as much as runtime:
 
 - Subpaths are random-walked by ONE `lax.scan` each (camera + light), so
   the BVH traversal and BSDF machinery are instantiated once per walk
@@ -118,10 +118,9 @@ class _ShadowBatch:
     t-iteration's connection rays (ref: every ConnectBDPT strategy's
     VisibilityTester, batched)."""
 
-    def __init__(self, use_pallas):
+    def __init__(self):
         self.reqs = []
         self.out = None
-        self.use_pallas = use_pallas
 
     def add(self, o, d, tmax) -> int:
         self.reqs.append((o, d, tmax))
@@ -134,7 +133,7 @@ class _ShadowBatch:
         o = jnp.concatenate([r[0] for r in self.reqs])
         d = jnp.concatenate([r[1] for r in self.reqs])
         tm = jnp.concatenate([r[2] for r in self.reqs])
-        occ = isect.occluded(scene, o, d, tm, use_pallas=self.use_pallas)
+        occ = isect.occluded(scene, o, d, tm)
         n = self.reqs[0][0].shape[0]
         self.out = [occ[i * n:(i + 1) * n] for i in range(len(self.reqs))]
 
@@ -142,8 +141,7 @@ class _ShadowBatch:
         return self.out[i]
 
 
-def _subpath(scene, o0, d0, beta0, pdf_dir0, key, n_verts, use_pallas,
-             stream, root_delta, collect_env=False, inf_sel_pdf=None,
+def _subpath(scene, o0, d0, beta0, pdf_dir0, key, n_verts, stream, root_delta, collect_env=False, inf_sel_pdf=None,
              root=None, u_vert=None, sel_esc=None):
     """Random-walk a subpath of up to n_verts surface vertices with one
     lax.scan (ref: bdpt.cpp RandomWalk).  Returns (verts list, L_escape);
@@ -160,7 +158,7 @@ def _subpath(scene, o0, d0, beta0, pdf_dir0, key, n_verts, use_pallas,
         (o, d, beta, alive, pdf_dir, prev_delta, prev_p, prev_ns,
          L_esc) = carry
         t_max = jnp.where(alive, 1e30, -1.0)
-        hit = isect.intersect(scene, o, d, t_max, use_pallas=use_pallas)
+        hit = isect.intersect(scene, o, d, t_max)
         it = isect.make_interaction(scene, o, d, hit)
         found = hit.valid & alive
 
@@ -286,8 +284,7 @@ def _mis_weight(cam, lit, s, t, rev_over, delta_over, lit0_delta_pos,
     return 1.0 / (1.0 + sum_ri)
 
 
-def trace_bdpt(scene, o0, d0, key, max_depth: int, use_pallas: bool = False,
-               cam=None, film_hw=None, u_ext=None, sel_st=None):
+def trace_bdpt(scene, o0, d0, key, max_depth: int, cam=None, film_hw=None, u_ext=None, sel_st=None):
     """BDPT estimate for N camera rays; returns (L (N,3), aux).
 
     cam + film_hw (static (H, W)) enable the t=1 light-tracing
@@ -325,7 +322,7 @@ def trace_bdpt(scene, o0, d0, key, max_depth: int, use_pallas: bool = False,
     # env escape term corresponds to s=0 at EVERY t, masked separately
     cam_surf, L = _subpath(
         scene, o0, d0, jnp.ones((N, 3), jnp.float32), pdf_dir_cam0, key, T,
-        use_pallas, stream=11, root_delta=jnp.zeros(N, bool),
+        stream=11, root_delta=jnp.zeros(N, bool),
         collect_env=True, inf_sel_pdf=inf_sel_pdf,
         u_vert=None if u_ext is None else u_ext["cam"],
         sel_esc=None if sel_st is None else (sel_st[0] == 0, sel_st[1]))
@@ -367,7 +364,7 @@ def trace_bdpt(scene, o0, d0, key, max_depth: int, use_pallas: bool = False,
     beta1 = jnp.where(em_ok[:, None], beta1, 0.0)
     o1 = vm.offset_ray_origin(em.o, em.n_l, em.d)
     lit_surf, _ = _subpath(scene, o1, em.d, beta1, em.pdf_dir, key, S,
-                           use_pallas, stream=13, root_delta=em.delta_dir,
+                           stream=13, root_delta=em.delta_dir,
                            root=lit_root,
                            u_vert=None if u_ext is None else u_ext["lit"])
     # invalidate light vertices whose emission failed
@@ -387,7 +384,7 @@ def trace_bdpt(scene, o0, d0, key, max_depth: int, use_pallas: bool = False,
         pt = cam_vs[t - 1]
         pt_minus = cam_vs[t - 2]
         eb = _EvalBatch()
-        sb = _ShadowBatch(use_pallas)
+        sb = _ShadowBatch()
         # the reference bounds every strategy by the requested path depth
         # (bdpt.cpp render loop: depth = s + t - 2 <= maxDepth)
         do_s1 = (1 + t - 2) <= max_depth
@@ -551,7 +548,7 @@ def trace_bdpt(scene, o0, d0, key, max_depth: int, use_pallas: bool = False,
         splat = jnp.zeros((Hf * Wf + 1, 3), jnp.float32)
         cam_p = camlib.camera_position(cam)
         eb = _EvalBatch()
-        sb = _ShadowBatch(use_pallas)
+        sb = _ShadowBatch()
         t1_meta = []
         for s_ in range(2, S + 2):
             if s_ - 1 > len(lit) - 1:

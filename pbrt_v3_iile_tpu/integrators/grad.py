@@ -1,7 +1,7 @@
 """Differentiable rendering: pixel gradients w.r.t. scene parameters.
 
-The reference renderer is not differentiable at all; this is a
-TPU-native extension (BASELINE.json config 3: gradients w.r.t. BSDF
+The reference renderer is not differentiable at all; this is an
+extension (BASELINE.json config 3: gradients w.r.t. BSDF
 albedo / light intensity).  The estimator is *detached sampling* (path
 replay with frozen decisions): sampled directions, pdfs, lobe choices,
 Russian-roulette and all intersection outputs are stop_gradient'ed, so

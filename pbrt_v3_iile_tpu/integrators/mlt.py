@@ -6,7 +6,7 @@ MLTSampler mutations mlt.cpp:57-107, bootstrap + b estimate
 mlt.cpp:Render, expected-values splatting with weights
 (a + large)/ (I/b + pLarge)).
 
-TPU-native restructuring: instead of one sequential chain per thread,
+Wavefront restructuring: instead of one sequential chain per thread,
 thousands of independent Markov chains run as one wavefront — each chain
 is a row of a (C, D) primary-sample matrix, one `trace_paths` call
 evaluates every chain's proposal simultaneously, and `lax.scan` advances
@@ -59,8 +59,7 @@ def _dims_bdpt(max_depth: int) -> int:
     return 6 + 3 * T + 3 * S + 7 + 4 * T
 
 
-def _eval_bdpt(scene, cam, cam_kind, has_lens, u, max_depth,
-               use_pallas=False):
+def _eval_bdpt(scene, cam, cam_kind, has_lens, u, max_depth):
     """Deterministic single-strategy BDPT estimate of the path encoded
     by u (ref: mlt.cpp MLT::L — depth from one dim, (s,t) from the
     next, ConnectBDPT on explicit sampler streams, result scaled by the
@@ -96,7 +95,7 @@ def _eval_bdpt(scene, cam, cam_kind, has_lens, u, max_depth,
 
     key = jax.random.PRNGKey(0)  # unused: all draws come from u_ext
     L, _ = bdptlib.trace_bdpt(scene, o, d, key, max_depth,
-                              use_pallas=use_pallas, u_ext=u_ext,
+                              u_ext=u_ext,
                               sel_st=(s_sel, t_sel))
     # scale by the strategy count AND the uniform depth selection
     # (ref: mlt.cpp L() "* nStrategies" + Render()
@@ -136,7 +135,7 @@ def _mutate(u, key, sigma, p_large):
 
 
 def render_mlt(sd, mutations_per_pixel: int = 64, seed: int = 0,
-               cfg: MLTConfig = None, use_pallas=None):
+               cfg: MLTConfig = None):
     """Full MLT render; returns (image (H,W,3) np.ndarray, stats dict)."""
     import time
     from . import render as renderlib
@@ -148,9 +147,9 @@ def render_mlt(sd, mutations_per_pixel: int = 64, seed: int = 0,
         cfg = MLTConfig(max_depth=sd.integrator.max_depth,
                         p_large=getattr(sd.integrator, "mlt_p_large", 0.3),
                         sigma=getattr(sd.integrator, "mlt_sigma", 0.01))
-    base = renderlib.make_integrator_config(sd, use_pallas=use_pallas)
+    base = renderlib.make_integrator_config(sd, accel="bvh")
     path_cfg = base._replace(max_depth=cfg.max_depth, nee=True,
-                             nee_all=False, direct_only=False, staged=False)
+                             nee_all=False, direct_only=False)
     scene = devlib.build_device_scene(sd)
     cam = camlib.make_camera(sd.camera, sd.film)
     cam_kind = camlib.KIND.get(sd.camera.kind, 0)
@@ -161,8 +160,7 @@ def render_mlt(sd, mutations_per_pixel: int = 64, seed: int = 0,
     if cfg.bdpt:
         def eval_fn(u):
             return _eval_bdpt(scene, cam, cam_kind, has_lens, u,
-                              cfg.max_depth,
-                              use_pallas=path_cfg.use_pallas)
+                              cfg.max_depth)
     else:
         def eval_fn(u):
             return _eval(scene, cam, cam_kind, has_lens, u, path_cfg)

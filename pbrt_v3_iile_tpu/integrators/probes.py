@@ -1,6 +1,6 @@
 """Hemispherical probe rendering: batched G-buffer generation.
 
-TPU-native replacement for IISPTdIntegrator::RenderView (ref:
+Wavefront replacement for IISPTdIntegrator::RenderView (ref:
 src/integrators/iispt_d.cpp:226-461 + Li at :66-224): instead of one
 32x32 film rendered single-threaded per probe, a batch of P probes is one
 wavefront of P*32*32 rays traced by the shared path integrator with probe
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 from ..ops import camera as camlib
@@ -20,6 +21,7 @@ from ..ops import samplers as smplr
 from ..utils import vecmath as vm
 from . import path as pathlib_
 
+HIGHEST = jax.lax.Precision.HIGHEST  # no TF32 in geometry transforms
 NO_INTERSECTION_DISTANCE = -1.0  # (ref: iispt_d.cpp:50)
 PROBE_MAX_DEPTH = 3              # (ref: iispt_d.cpp:505)
 
@@ -35,7 +37,6 @@ class ProbeGBuffer(NamedTuple):
 
 
 def render_probes(scene, positions, normals, key, hemi_size: int = 32,
-                  use_pallas: bool = False, staged: bool = False,
                   jitter: bool = True, accel: str = "bvh") -> ProbeGBuffer:
     """positions, normals: (P, 3) world-space probe anchors (the normal is
     the already-flipped outward surface normal, ref
@@ -59,8 +60,6 @@ def render_probes(scene, positions, normals, key, hemi_size: int = 32,
         max_depth=PROBE_MAX_DEPTH,
         nee=True,
         skip_bounce0_le=True,
-        use_pallas=use_pallas,
-        staged=staged,
         accel=accel,
     )
     kp = smplr.wave_key(key, 0, 0, smplr.DIM_PROBE)
@@ -72,9 +71,9 @@ def render_probes(scene, positions, normals, key, hemi_size: int = 32,
     # camera-space normal (ref: iispt_d.cpp:105-107 WorldToCamera applied)
     n_cam = jnp.stack(
         [
-            jnp.einsum("phwc,pc->phw", n_world, right),
-            jnp.einsum("phwc,pc->phw", n_world, up),
-            jnp.einsum("phwc,pc->phw", n_world, look),
+            jnp.einsum("phwc,pc->phw", n_world, right, precision=HIGHEST),
+            jnp.einsum("phwc,pc->phw", n_world, up, precision=HIGHEST),
+            jnp.einsum("phwc,pc->phw", n_world, look, precision=HIGHEST),
         ],
         axis=-1,
     )
@@ -85,14 +84,11 @@ def render_probes(scene, positions, normals, key, hemi_size: int = 32,
 
 
 def find_first_nonspecular(scene, o, d, key, max_chase: int = 24,
-                           use_pallas: bool = False, staged: bool = False,
                            accel: str = "bvh"):
     """Specular chase: follow mirror/glass bounces to the first diffuse
     hit, to the reference's full 24-bounce depth
     (ref: iisptrenderrunner.cpp:657-757 find_intersection).
 
-    staged=True runs the chase loop on the host with one cached jitted
-    step (small device programs — required with the pallas path).
     Returns dict: found (N,), p, n (outward, flipped against ray), wo,
     mat (N,), beta (N,3), background (N,3), emitted (N,3).
     """
@@ -106,36 +102,16 @@ def find_first_nonspecular(scene, o, d, key, max_chase: int = 24,
         jnp.zeros(N, jnp.int32), jnp.zeros((N, 2), jnp.float32),
         jnp.zeros((N, 3), jnp.float32), jnp.zeros((N, 3), jnp.float32),
     )
-    if staged:
-        step = _chase_step(use_pallas, accel)
-        carry = carry0
-        for i in range(max_chase):
-            carry = step(scene, carry, jnp.int32(i), key)
-    else:
-        carry, _ = jax.lax.scan(
-            lambda c, i: (_chase_body(scene, c, i, key, use_pallas,
-                                      accel), None),
-            carry0, jnp.arange(max_chase))
+    carry, _ = jax.lax.scan(
+        lambda c, i: (_chase_body(scene, c, i, key, accel), None),
+        carry0, jnp.arange(max_chase))
     (o, d, beta, alive, found, p, n, wo, mat, uv, background,
      emitted) = carry
     return dict(found=found, p=p, n=n, wo=wo, mat=mat, uv=uv, beta=beta,
                 background=background, emitted=emitted)
 
 
-import functools
-
-
-@functools.lru_cache(maxsize=8)
-def _chase_step(use_pallas: bool, accel: str = "bvh"):
-    import jax
-
-    @jax.jit
-    def step(scene, carry, i, key):
-        return _chase_body(scene, carry, i, key, use_pallas, accel)
-    return step
-
-
-def _chase_body(scene, carry, i, key, use_pallas, accel: str = "bvh"):
+def _chase_body(scene, carry, i, key, accel: str = "bvh"):
     import jax
 
     from ..ops import bsdf as bsdflib
@@ -148,8 +124,7 @@ def _chase_body(scene, carry, i, key, use_pallas, accel: str = "bvh"):
          emitted) = carry
         N = o.shape[0]
         t_max = jnp.where(alive, 1e30, -1.0)
-        hit = isect.intersect(scene, o, d, t_max, use_pallas=use_pallas,
-                              accel=accel)
+        hit = isect.intersect(scene, o, d, t_max, accel=accel)
         it = isect.make_interaction(scene, o, d, hit)
 
         esc = alive & (~hit.valid)

@@ -4,7 +4,7 @@ Reproduces IisptScheduleMonitor exactly (ref:
 src/integrators/iisptschedulemonitor.cpp:40-80): tasks sweep the image in
 task_size = floor(radius)*NUMBER_TILES squares; when a sweep completes the
 radius decays by update_multiplier (default sqrt(0.79541357), start 100).
-On TPU the mutex work-queue becomes this precomputed list — each task is
+Here the mutex work-queue becomes this precomputed list — each task is
 one jitted launch (SURVEY P2 mapping).
 """
 

@@ -5,7 +5,7 @@ src/integrators/sppm.cpp — per-iteration camera pass storing one visible
 point per pixel + direct lighting, photon pass depositing into a spatial
 hash grid, and the SPPM radius/flux statistics update with alpha = 2/3).
 
-TPU-native restructuring: both passes are wavefronts (one jitted program
+Wavefront restructuring: both passes are wavefronts (one jitted program
 each); the photon map is a *sorted* array instead of a linked-list hash
 grid — photons are hashed to cells, sorted by cell id, and every visible
 point gathers from the <=8 cells its radius ball overlaps via
@@ -34,7 +34,7 @@ ALPHA = 2.0 / 3.0   # SPPM radius-shrink exponent (ref: sppm.cpp alpha)
 K_CAP = 32          # max photons gathered per cell per visible point
 
 
-def _camera_pass(scene, o0, d0, key, max_depth, use_pallas):
+def _camera_pass(scene, o0, d0, key, max_depth):
     """Trace camera rays through specular chains; returns (Ld, vp dict).
 
     (ref: sppm.cpp 'Generate SPPM visible points'): Le is added when
@@ -56,7 +56,7 @@ def _camera_pass(scene, o0, d0, key, max_depth, use_pallas):
 
     for b in range(max_depth):
         t_max = jnp.where(alive, 1e30, -1.0)
-        hit = isect.intersect(scene, o, d, t_max, use_pallas=use_pallas)
+        hit = isect.intersect(scene, o, d, t_max)
         it = isect.make_interaction(scene, o, d, hit)
         found = hit.valid & alive
 
@@ -96,8 +96,7 @@ def _camera_pass(scene, o0, d0, key, max_depth, use_pallas):
         # shadow length from the OFFSET origin (see path.py nee_once)
         sh_tmax = jnp.where(
             can, (ls.dist - vm.dot(o_sh - it.p, ls.wi)) * 0.999, -1.0)
-        occ = isect.occluded(scene, o_sh, ls.wi, sh_tmax,
-                             use_pallas=use_pallas)
+        occ = isect.occluded(scene, o_sh, ls.wi, sh_tmax)
         contrib = beta * f_l * ls.li * (cos_l / jnp.maximum(
             ls.pdf * sel_pdf, 1e-12))[:, None]
         Ld = Ld + jnp.where((can & ~occ)[:, None], contrib, 0.0)
@@ -139,7 +138,7 @@ def _camera_pass(scene, o0, d0, key, max_depth, use_pallas):
     return Ld, vp
 
 
-def _photon_pass(scene, key, n_photons, max_depth, use_pallas):
+def _photon_pass(scene, key, n_photons, max_depth):
     """Emit and trace photons; returns per-deposit SoA (positions, power,
     incident dir, valid) of shape (n_photons * max_depth, ...).
 
@@ -160,7 +159,7 @@ def _photon_pass(scene, key, n_photons, max_depth, use_pallas):
     dep_p, dep_pow, dep_wi, dep_ok = [], [], [], []
     for b in range(max_depth):
         t_max = jnp.where(alive, 1e30, -1.0)
-        hit = isect.intersect(scene, o, d, t_max, use_pallas=use_pallas)
+        hit = isect.intersect(scene, o, d, t_max)
         it = isect.make_interaction(scene, o, d, hit)
         found = hit.valid & alive
         params = bsdflib.gather_params(scene, jnp.maximum(it.mat, 0),
@@ -275,8 +274,7 @@ def _gather(vp, ph_p, ph_pow, ph_wi, ph_ok, radius, grid_origin, cell):
     return Phi, M, jnp.sum(dropped)
 
 
-def render_sppm(sd, n_iterations: int = 64, seed: int = 0, use_pallas=None,
-                report=None):
+def render_sppm(sd, n_iterations: int = 64, seed: int = 0, report=None):
     """Full SPPM render; returns (image (H,W,3) np.ndarray, stats)."""
     import time
     from . import render as renderlib
@@ -289,7 +287,7 @@ def render_sppm(sd, n_iterations: int = 64, seed: int = 0, use_pallas=None,
     n_photons = sd.integrator.photons_per_iteration
     if n_photons <= 0:
         n_photons = N          # (ref: sppm.cpp default photonsPerIteration)
-    base = renderlib.make_integrator_config(sd, use_pallas=use_pallas)
+    base = renderlib.make_integrator_config(sd)
     scene = devlib.build_device_scene(sd)
     cam = camlib.make_camera(sd.camera, sd.film)
     cam_kind = camlib.KIND.get(sd.camera.kind, 0)
@@ -307,10 +305,8 @@ def render_sppm(sd, n_iterations: int = 64, seed: int = 0, use_pallas=None,
         kj = smplr.wave_key(it_key, 0, 0, smplr.DIM_PIXEL_JITTER)
         o0, d0 = camlib.generate_rays(
             cam, pix + smplr.uniform(kj, (N, 2)), kind=cam_kind)
-        Ld, vp = _camera_pass(scene, o0, d0, it_key, max_depth,
-                              base.use_pallas)
-        ph = _photon_pass(scene, it_key, n_photons, max_depth,
-                          base.use_pallas)
+        Ld, vp = _camera_pass(scene, o0, d0, it_key, max_depth)
+        ph = _photon_pass(scene, it_key, n_photons, max_depth)
         cell = 2.0 * jnp.maximum(jnp.max(radius), 1e-6)
         Phi, M, dropped = _gather(vp, *ph, radius, grid_origin, cell)
         # SPPM statistics update (ref: sppm.cpp 'Update pixel values from

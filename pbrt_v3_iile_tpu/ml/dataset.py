@@ -66,7 +66,7 @@ def example_from_maps(p, d, n, z, aug: int = 0):
 
 def generate_examples(scene, cam, cam_kind, key, pixel_coords,
                       hemi_size: int = 32, gt_spp: int = 16,
-                      use_pallas: bool = False, accel: str = "bvh"):
+                      accel: str = "bvh"):
     """Render raw training maps at the given film pixels.
 
     pixel_coords: (P, 2) int film pixels (the reference_tiles grid,
@@ -86,22 +86,20 @@ def generate_examples(scene, cam, cam_kind, key, pixel_coords,
     p_film = pixel_coords.astype(jnp.float32) + jit_p
     o, d = camlib.generate_rays(cam, p_film, kind=cam_kind)
     fi = probelib.find_first_nonspecular(scene, o, d, key,
-                                         use_pallas=use_pallas,
                                          accel=accel)
     valid = fi["found"]
 
     # 1spp probe G-buffer (the network input)
     gb = probelib.render_probes(scene, fi["p"], fi["n"],
                                 jax.random.fold_in(key, 1), hemi_size,
-                                use_pallas=use_pallas, accel=accel)
+                                accel=accel)
 
     # ground truth: average of gt_spp jittered probe renders
     def gt_body(carry, i):
         acc = carry
         g = probelib.render_probes(scene, fi["p"], fi["n"],
                                    jax.random.fold_in(key, 100 + i),
-                                   hemi_size, use_pallas=use_pallas,
-                                   accel=accel)
+                                   hemi_size, accel=accel)
         return acc + g.intensity, None
 
     acc0 = jnp.zeros((P, hemi_size, hemi_size, 3), jnp.float32)
@@ -159,8 +157,7 @@ def batches_from_raw(raw_examples, batch_size: int, key, n_augment: int = 16):
 
 def generate_examples_sharded(scene, cam, cam_kind, key, pixel_coords,
                               mesh=None, hemi_size: int = 32,
-                              gt_spp: int = 16, use_pallas: bool = False,
-                              accel: str = "bvh"):
+                              gt_spp: int = 16, accel: str = "bvh"):
     """Mesh-sharded reference-mode generation (SURVEY P4).
 
     Replaces the reference's MOD/MATCH multi-process pixel-grid sharding
@@ -178,7 +175,7 @@ def generate_examples_sharded(scene, cam, cam_kind, key, pixel_coords,
     """
     from ..parallel import mesh as meshlib
     from jax.sharding import PartitionSpec as P
-    from jax.experimental.shard_map import shard_map
+    from jax import shard_map
 
     if mesh is None:
         mesh = meshlib.make_mesh()
@@ -195,17 +192,16 @@ def generate_examples_sharded(scene, cam, cam_kind, key, pixel_coords,
         k = jax.random.fold_in(key, sid)
         return generate_examples(scene, cam, cam_kind, k, coords_shard,
                                  hemi_size=hemi_size, gt_spp=gt_spp,
-                                 use_pallas=use_pallas, accel=accel)
+                                 accel=accel)
 
     fn = shard_map(shard_fn, mesh=mesh, in_specs=(P(axes),),
-                   out_specs=P(axes), check_rep=False)
+                   out_specs=P(axes), check_vma=False)
     return fn(pixel_coords)
 
 
 def generate_examples_shard_serial(scene, cam, cam_kind, key, pixel_coords,
                                    n_shards: int, hemi_size: int = 32,
                                    gt_spp: int = 16,
-                                   use_pallas: bool = False,
                                    accel: str = "bvh"):
     """Single-device oracle for generate_examples_sharded: loops the
     shards serially with the identical per-shard key folding."""
@@ -216,6 +212,5 @@ def generate_examples_shard_serial(scene, cam, cam_kind, key, pixel_coords,
         k = jax.random.fold_in(key, s)
         outs.append(generate_examples(
             scene, cam, cam_kind, k, pixel_coords[s * per:(s + 1) * per],
-            hemi_size=hemi_size, gt_spp=gt_spp, use_pallas=use_pallas,
-            accel=accel))
+            hemi_size=hemi_size, gt_spp=gt_spp, accel=accel))
     return {k: jnp.concatenate([o[k] for o in outs]) for k in outs[0]}

@@ -11,7 +11,7 @@ viewer (tools/interactive_training_view).  Protocol (tokens on stdout):
              "#LOWL1 v" "#LOWSS v" "#GAUSSL1 v" "#GAUSSSS v"
              "#RESL1 v" "#RESSS v" "#NAME p" "#EVALUATECOMPLETE"
 
-The CNN runs in-graph (jitted flax apply) instead of torch; images are
+The CNN runs in-graph (jitted apply) instead of torch; images are
 loaded with the reference PFM directory layout ({p,d,n,z}_x_y.pfm,
 ml/iispt_dataset.py semantics) via ml/dataset.load_pfm_dataset.
 

@@ -2,8 +2,8 @@
 
 Replaces ml/main_train.py end-to-end (ref: main_train.py:21-156): the
 PyTorch single-GPU loop becomes a data-parallel jitted step over the
-device mesh with gradient all-reduce over ICI (SURVEY P8); checkpoints go
-through orbax/msgpack instead of a torch state_dict.
+device mesh with a gradient all-reduce (SURVEY P8); checkpoints are a
+pickled or npz parameter tree instead of a torch state_dict.
 """
 
 from __future__ import annotations
@@ -142,49 +142,3 @@ def default_pretrained_path() -> str:
     import os
     return os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "pretrained", "iispt_pretrained.npz")
-
-
-# ---------------------------------------------------------------------------
-# Orbax checkpointing (SURVEY §5 checkpoint/resume: "orbax checkpoints
-# for (film, sample-count, pass schedule, params)") — durable,
-# atomic-rename training state incl. the OPTIMIZER state, which the
-# pickle path above does not carry.
-# ---------------------------------------------------------------------------
-
-def save_checkpoint_orbax(path: str, state, step: int = 0):
-    """Write params/batch_stats/opt_state atomically via orbax."""
-    import os
-    import orbax.checkpoint as ocp
-
-    path = os.path.abspath(path)
-    tree = {
-        "params": state["params"],
-        "batch_stats": state["batch_stats"],
-        "opt_state": state["opt_state"],
-        "step": jnp.asarray(step, jnp.int32),
-    }
-    with ocp.PyTreeCheckpointer() as ck:
-        ck.save(path, tree, force=True)
-
-
-def load_checkpoint_orbax(path: str, state):
-    """Restore into an init_training state (returns updated state, step).
-
-    `state` supplies the tree structure/dtypes (orbax restores by
-    example); raises if the shapes don't match the current net."""
-    import os
-    import orbax.checkpoint as ocp
-
-    path = os.path.abspath(path)
-    example = {
-        "params": state["params"],
-        "batch_stats": state["batch_stats"],
-        "opt_state": state["opt_state"],
-        "step": jnp.asarray(0, jnp.int32),
-    }
-    with ocp.PyTreeCheckpointer() as ck:
-        tree = ck.restore(path, item=example)
-    new_state = dict(state, params=tree["params"],
-                     batch_stats=tree["batch_stats"],
-                     opt_state=tree["opt_state"])
-    return new_state, int(tree["step"])

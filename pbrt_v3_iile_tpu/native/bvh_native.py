@@ -1,8 +1,9 @@
 """ctypes bridge to the C++ binned-SAH BVH builder.
 
-Compiles native/bvh_builder.cpp on first use (g++ -O3) and caches the
-shared object next to the source.  Falls back silently (ops/bvh.py numpy
-path) if the toolchain is unavailable.
+Compiles native/bvh_builder.cpp on first use (g++ -O3, portable x86-64
+code: no -march=native, so the library runs on any host that shares the
+checkout) into native/build/, which .gitignore lists.  If the build
+fails, the reason goes to stderr and ops/bvh.py uses its numpy builder.
 """
 
 from __future__ import annotations
@@ -10,13 +11,36 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import sys
+import tempfile
 
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "bvh_builder.cpp")
-_SO = os.path.join(_HERE, "libbvh_builder.so")
+_BUILD = os.path.join(_HERE, "build")
+_SO = os.path.join(_BUILD, "libbvh_builder.so")
 _LIB = None
+
+
+def _compile():
+    """Build into a temporary file, then rename: concurrent first uses
+    (test workers) never load a half-written library."""
+    os.makedirs(_BUILD, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
+    os.close(fd)
+    try:
+        subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC],
+                       check=True, capture_output=True, text=True)
+        os.replace(tmp, _SO)
+    except (OSError, subprocess.CalledProcessError) as e:
+        detail = getattr(e, "stderr", None) or str(e)
+        print(f"bvh_native: building {_SRC} failed; using the numpy BVH "
+              f"builder instead.\n{detail}", file=sys.stderr)
+        raise
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _load():
@@ -25,9 +49,7 @@ def _load():
         return _LIB
     if (not os.path.exists(_SO)
             or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
-        cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-               "-o", _SO, _SRC]
-        subprocess.run(cmd, check=True, capture_output=True)
+        _compile()
     lib = ctypes.CDLL(_SO)
     lib.bvh_build.restype = ctypes.c_int64
     lib.bvh_build.argtypes = [

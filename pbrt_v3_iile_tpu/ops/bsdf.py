@@ -5,7 +5,7 @@ src/core/reflection.{h,cpp}: LambertianReflection, OrenNayar,
 MicrofacetReflection, FresnelSpecular, SpecularReflection; BSDF::f
 reflection.cpp:686, BSDF::Sample_f reflection.cpp:719; microfacet math in
 src/core/microfacet.cpp) as a fixed set of *lobes* evaluated for the whole
-wavefront with per-ray masks — no virtual dispatch, one VPU pass per lobe.
+wavefront with per-ray masks — no virtual dispatch, one vector pass per lobe.
 
 All directions are in the local shading frame (+z = shading normal).
 Lobe selection is luminance-weighted (an improvement over the reference's

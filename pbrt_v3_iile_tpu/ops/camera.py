@@ -15,11 +15,14 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from ..utils import transforms as xf
 from ..utils import vecmath as vm
 from . import sampling as smp
+
+HIGHEST = jax.lax.Precision.HIGHEST  # no TF32 in geometry transforms
 
 
 class Camera(NamedTuple):
@@ -169,7 +172,7 @@ def realistic_generate_rays(cam: Camera, p_film: jnp.ndarray,
     """Trace film->rear-element->scene through the spherical lens stack
     (ref: realistic.cpp GenerateRay + TraceLensesFromFilm).  Instead of
     the precomputed exit-pupil tables we sample the full rear aperture
-    and zero out vignetted rays — unbiased, simpler, TPU-friendly (the
+    and zero out vignetted rays — unbiased, simpler, vector-friendly (the
     loop over elements is unrolled; everything stays vectorized).
     Returns (o_world, d_world, weight)."""
     N = p_film.shape[0]
@@ -325,13 +328,13 @@ def _make_camera_static(desc, film) -> Camera:
 
 
 def _apply44_point(m, p):
-    ph = p @ m[:3, :3].T + m[:3, 3]
-    w = p @ m[3, :3].T + m[3, 3]
+    ph = jnp.dot(p, m[:3, :3].T, precision=HIGHEST) + m[:3, 3]
+    w = jnp.dot(p, m[3, :3].T, precision=HIGHEST) + m[3, 3]
     return ph / w[..., None]
 
 
 def _apply44_vector(m, v):
-    return v @ m[:3, :3].T
+    return jnp.dot(v, m[:3, :3].T, precision=HIGHEST)
 
 
 def generate_rays(cam: Camera, p_film: jnp.ndarray, u_lens=None,
@@ -386,9 +389,10 @@ def generate_rays(cam: Camera, p_film: jnp.ndarray, u_lens=None,
         R = _quat_to_matrix(q)                              # (N,3,3)
         S = cam.anim_s0[None] \
             + dt[:, None, None] * (cam.anim_s1 - cam.anim_s0)[None]
-        M = jnp.einsum("nij,njk->nik", R, S)                # (N,3,3)
-        o = jnp.einsum("nij,nj->ni", M, o_cam) + T
-        d = vm.normalize(jnp.einsum("nij,nj->ni", M, d_cam))
+        M = jnp.einsum("nij,njk->nik", R, S, precision=HIGHEST)              # (N,3,3)
+        o = jnp.einsum("nij,nj->ni", M, o_cam, precision=HIGHEST) + T
+        d = vm.normalize(jnp.einsum("nij,nj->ni", M, d_cam,
+                                       precision=HIGHEST))
         return o, d
     o = _apply44_point(cam.cam_to_world, o_cam)
     d = vm.normalize(_apply44_vector(cam.cam_to_world, d_cam))
@@ -398,7 +402,7 @@ def generate_rays(cam: Camera, p_film: jnp.ndarray, u_lens=None,
 def _quat_slerp(t, q0, q1):
     """Vectorized slerp, t (N,), q0/q1 (4,) -> (N,4)
     (ref: quaternion.cpp Slerp)."""
-    d = jnp.dot(q0, q1)
+    d = jnp.dot(q0, q1, precision=HIGHEST)
     theta = jnp.arccos(jnp.clip(d, -1.0, 1.0))
     small = jnp.abs(d) > 0.9995
     sin_th = jnp.sin(theta)
@@ -454,7 +458,8 @@ def pdf_we_dir(cam: Camera, d_world):
     (ref: perspective.cpp Pdf_We: pdfDir = 1/(A cos^3 theta), zero
     outside the frustum — frustum check done via raster projection)."""
     A = _persp_film_area(cam)
-    cos_t = jnp.einsum("nc,c->n", d_world, camera_forward(cam))
+    cos_t = jnp.einsum("nc,c->n", d_world, camera_forward(cam),
+                       precision=HIGHEST)
     raster, on_film = project_to_raster(
         cam, camera_position(cam)[None, :] + d_world)
     ok = (cos_t > 1e-6) & on_film
@@ -487,7 +492,8 @@ def sample_wi(cam: Camera, p_ref):
     to_cam = cam_p[None, :] - p_ref
     dist = jnp.sqrt(jnp.maximum(jnp.sum(to_cam * to_cam, axis=-1), 1e-20))
     wi = to_cam / dist[:, None]
-    cos_t = jnp.einsum("nc,c->n", -wi, camera_forward(cam))
+    cos_t = jnp.einsum("nc,c->n", -wi, camera_forward(cam),
+                       precision=HIGHEST)
     raster, on_film = project_to_raster(cam, p_ref)
     A = _persp_film_area(cam)
     valid = (cos_t > 1e-6) & on_film

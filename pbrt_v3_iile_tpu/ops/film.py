@@ -8,7 +8,7 @@ boundaries (SURVEY P1/P7 mapping).
 
 Filter reconstruction exploits the regular sample grid: a sample at
 pixel p contributes to neighbors p+o for offsets o in a static support
-window, so filtering is a sum of shifted weighted images — dense VPU work,
+window, so filtering is a sum of shifted weighted images — dense vector work,
 no scatter.
 """
 

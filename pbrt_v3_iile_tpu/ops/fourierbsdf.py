@@ -6,7 +6,7 @@ in the azimuth-difference angle over a (mu_i, mu_o) grid
 src/core/interpolation.cpp Fourier/CatmullRomWeights,
 src/materials/fourier.cpp).
 
-TPU-native design: the table is loaded and evaluated EXACTLY on the host
+Design: the table is loaded and evaluated EXACTLY on the host
 (numpy) — used for tests and for fitting — while the render hot path
 projects the table onto the wavefront lobe system (diffuse albedo +
 Trowbridge-Reitz glossy lobe) at scene-build time via least squares.
@@ -252,7 +252,7 @@ def fit_lobes(table: FourierTable, n_dirs: int = 24):
 
 
 # ---------------------------------------------------------------------------
-# In-graph exact evaluation (TPU path)
+# In-graph exact evaluation (device path)
 #
 # The variable-length per-(muI,muO) coefficient lists are densified at
 # scene build into a (T, nMu, nMu, m_cap, 3) array (orders above m_cap

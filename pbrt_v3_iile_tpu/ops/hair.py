@@ -6,10 +6,10 @@ Phi/Logistic/TrimmedLogistic, hair.cpp:~60-430), itself the pbrt-v3
 implementation of "A Practical and Controllable Hair and Fur Model for
 Production Path Tracing" (Chiang et al. 2016).
 
-TPU-native restructuring: instead of a per-hit virtual BxDF with pMax
+Wavefront restructuring: instead of a per-hit virtual BxDF with pMax
 scalar loops, every quantity is computed for the whole wavefront at once;
 the p = 0..2 lobe loop is unrolled into stacked (4,N) arrays so the whole
-evaluation is a handful of fused VPU passes (exp/log/trig on (N,) lanes) —
+evaluation is a handful of fused vector passes (exp/log/trig on (N,) lanes) —
 no per-ray control flow, no data-dependent branches.
 
 Conventions match the reference: directions are in the curve's local frame

@@ -5,16 +5,16 @@ build with edge candidates, isectCost=80/traversalCost=1/emptyBonus=0.5,
 KdAccelNode 8-byte packing, tmin/tmax todo-stack traversal
 kdtreeaccel.cpp::Intersect).
 
-TPU-native restructuring: the build stays on the host (numpy, once per
+Wavefront restructuring: the build stays on the host (numpy, once per
 scene) and emits flat SoA arrays; traversal is a vectorized
 `lax.while_loop` where every live ray advances one node per iteration,
 with per-ray (node, tmin, tmax) stacks — the same wavefront pattern as
 the BVH walker (ops/intersect.py), so the two accelerators are drop-in
 interchangeable behind `Accelerator "kdtree"`.
 
-The BVH remains the production TPU path (its Pallas packet kernel is the
-fast path); the kd-tree exists for aggregate parity and as a second
-correctness oracle.
+The BVH remains the production path (the cluster kernel on GPUs, the
+walker on the CPU); the kd-tree exists for aggregate parity and as a
+second correctness oracle.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Replaces the reference's table-driven samplers (ref:
 src/core/lowdiscrepancy.{h,cpp} + sobolmatrices.cpp [32 kLoC of tables],
-samplers/halton.cpp, sobol.cpp, zerotwosequence.cpp): on TPU the
+samplers/halton.cpp, sobol.cpp, zerotwosequence.cpp): on the device the
 radical inverses and base-2 Sobol points are cheaper to recompute with
 bit math than to gather from tables.
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 from ..utils import vecmath as vm
@@ -22,6 +23,8 @@ from ..scene.api import (
     LIGHT_POINT, LIGHT_DISTANT, LIGHT_INFINITE, LIGHT_AREA_TRI,
     LIGHT_AREA_SPHERE, LIGHT_SPOT, LIGHT_GONIO, LIGHT_PROJECTION,
 )
+
+HIGHEST = jax.lax.Precision.HIGHEST  # no TF32 in geometry transforms
 
 
 class LightSample(NamedTuple):
@@ -291,7 +294,7 @@ def area_light_le(scene, light_id, n_l, w_out):
 def _env_uv(scene, d):
     """Direction -> lat-long (u, v) in the light frame (ref: infinite.cpp
     Le: SphericalPhi/Theta of WorldToLight(d), z-up)."""
-    dl = d @ scene.env_world_to.T
+    dl = jnp.dot(d, scene.env_world_to.T, precision=HIGHEST)
     theta = vm.spherical_theta(dl)
     phi = vm.spherical_phi(dl)
     return phi * smp.INV_2PI, theta * (1.0 / jnp.pi), theta
@@ -344,7 +347,7 @@ def _sample_env_map(scene, u2):
     st = jnp.sin(theta)
     d_light = jnp.stack([st * jnp.cos(phi), st * jnp.sin(phi),
                          jnp.cos(theta)], axis=-1)
-    wi = d_light @ scene.env_to_world.T
+    wi = jnp.dot(d_light, scene.env_to_world.T, precision=HIGHEST)
     pdf = jnp.take(scene.env_pdf.reshape(-1), row * EW + col)
     li = jnp.take(scene.env_img.reshape(-1, 3), row * EW + col, axis=0)
     return wi, pdf, li
@@ -394,7 +397,7 @@ def _gonio_scale(scene, light_id, w):
     lookup)."""
     g = lambda a: jnp.take(a, light_id, axis=0)
     w2l = g(scene.light_w2l)                         # (N,3,3)
-    wl = jnp.einsum("nij,nj->ni", w2l, w)
+    wl = jnp.einsum("nij,nj->ni", w2l, w, precision=HIGHEST)
     wl = wl / jnp.maximum(vm.length(wl), 1e-12)[..., None]
     # swap y/z (the reference's photometric maps are y-up)
     wl = jnp.stack([wl[..., 0], wl[..., 2], wl[..., 1]], axis=-1)
@@ -410,7 +413,7 @@ def _projection_scale(scene, light_id, w):
     zero outside)."""
     g = lambda a: jnp.take(a, light_id, axis=0)
     w2l = g(scene.light_w2l)
-    wl = jnp.einsum("nij,nj->ni", w2l, w)
+    wl = jnp.einsum("nij,nj->ni", w2l, w, precision=HIGHEST)
     z = wl[..., 2]
     ax = g(scene.light_proj_ax)
     ay = g(scene.light_proj_ay)

@@ -2,7 +2,7 @@
 
 Semantics follow the reference's src/core/sampling.{h,cpp}; every function
 maps (..., k) uniform samples to (..., d) outputs so an entire wavefront is
-one VPU pass.
+one vector pass.
 """
 
 from __future__ import annotations

@@ -1,12 +1,13 @@
 """Device mesh construction and sharding helpers.
 
-TPU-native replacement for the reference's thread-pool parallelism
+Replacement for the reference's thread-pool parallelism
 (ref: src/core/parallel.cpp ParallelFor2D + the IILE ThreadPool,
 tools/threadpool.h): work is sharded over a `jax.sharding.Mesh` with
 axes
   "dp"   — data parallel (probe/training batches)
   "tile" — image-tile / ray-wavefront parallel (SURVEY P1)
-Collectives (psum for film reduction and gradient all-reduce) ride ICI.
+The mesh follows the algorithm only: every GPU of a host reaches every
+other at the same rate, so no axis is shaped by a topology.
 """
 
 from __future__ import annotations

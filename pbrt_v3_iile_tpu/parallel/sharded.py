@@ -15,7 +15,7 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..ops import camera as camlib
 from ..ops import samplers as smplr
@@ -51,7 +51,7 @@ def sharded_render_pass(sd, mesh, cfg=None):
         shard_map, mesh=mesh,
         in_specs=(P(), P(), P(), P(), P(axes)),
         out_specs=(P(axes), P(axes)),
-        check_rep=False)
+        check_vma=False)
     def pass_rows(scene, cam, key, pass_idx, rows):
         # rows: (CH,) absolute row indices for this shard (contiguous)
         o, d, w, jitter, k, ctx, rtime = prep(cam, key, pass_idx, rows[0])
@@ -74,7 +74,7 @@ def sharded_render_pass(sd, mesh, cfg=None):
 
 def make_train_step(net, optimizer, mesh, loss: str = "l1"):
     """Data-parallel train step: batch sharded over (dp, tile), params
-    replicated, gradient all-reduce inserted by XLA over ICI (P8).
+    replicated, gradient all-reduce inserted by XLA (P8).
 
     loss: 'l1' (reference default, ml/main_train.py:23), 'rel_l1' or
     'rel_mse' (ref: ml/iispt_loss.py)."""
@@ -178,7 +178,7 @@ def sharded_geometry_intersect(scene, geo, mesh):
     """Returns jitted f(o, d, t_max) -> Hit against geometry sharded over
     the mesh: every device traverses the FULL ray wavefront against its
     triangle shard, then the closest hit is reduced across devices with a
-    min-t argmin (an all-reduce over ICI — the communication pattern of
+    min-t argmin (an all-reduce across devices — the communication pattern of
     distributed-geometry ray tracing).  Hit.prim is the global triangle
     id, so make_interaction works against the replicated full scene."""
     from ..ops import intersect as isectlib
@@ -190,7 +190,7 @@ def sharded_geometry_intersect(scene, geo, mesh):
         shard_map, mesh=mesh,
         in_specs=(P(axes), P(axes), P(axes), P(), P(), P()),
         out_specs=P(),
-        check_rep=False)
+        check_vma=False)
     def walk(nodes, tris, gids, o, d, t_max):
         # local shard arrays come in with a leading length-1 axis
         sub = scene._replace(nodes_packed=nodes[0], tris_packed=tris[0])

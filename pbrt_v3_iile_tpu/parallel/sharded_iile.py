@@ -19,7 +19,7 @@ halo-exchange called out in SURVEY §5 "long-context analogue"):
 The direct progressive passes reuse parallel/sharded.py's row-sharded
 path pass.  Reference analogue: iispt.cpp:358-453 render_normal_2 with
 the MOD/MATCH multi-process sharding of iispt.cpp:479-505 replaced by
-mesh axes + ICI collectives.
+mesh axes + collectives.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..integrators import iispt as iisptlib
 from ..integrators import path as pathlib_
@@ -58,7 +58,7 @@ def _task_fn_cache(key):
 
 
 def _probe_stage(scene, cam, net, net_vars, key, coords, hemi_size,
-                 use_pallas, cam_kind):
+                 cam_kind):
     """Probe shard body (shared by the shard_map task and the serial
     oracle — the per-shard keying depends only on the DATA slice, never
     on the axis index, so slice-for-slice serial execution reproduces
@@ -68,11 +68,10 @@ def _probe_stage(scene, cam, net, net_vars, key, coords, hemi_size,
     jit_p = smplr.uniform(kj, coords.shape)
     p_film = coords.astype(jnp.float32) + jit_p
     o, d = camlib.generate_rays(cam, p_film, kind=cam_kind)
-    fi = probelib.find_first_nonspecular(scene, o, d, key,
-                                         use_pallas=use_pallas)
+    fi = probelib.find_first_nonspecular(scene, o, d, key)
     probe_valid_l = fi["found"] & (vm.luminance(fi["beta"]) > 0.0)
     gb = probelib.render_probes(scene, fi["p"], fi["n"], key,
-                                hemi_size, use_pallas=use_pallas)
+                                hemi_size)
     from ..models import transforms as nnx
     x_in, aux = nnx.probe_to_network_input(gb.intensity, gb.normals,
                                            gb.distance)
@@ -84,7 +83,7 @@ def _probe_stage(scene, cam, net, net_vars, key, coords, hemi_size,
 
 def _pixel_stage(scene, cam, key, R, probe_valid, g_right, g_up, g_look,
                  g_origin, coords_all, fx, fy, n_ids, in_img, ts,
-                 hemi_size, use_pallas, cam_kind, W, H):
+                 hemi_size, cam_kind, W, H):
     """Pixel shard body (same sharing contract as _probe_stage)."""
     kpj = smplr.wave_key(key, 3, 0, smplr.DIM_PIXEL_JITTER)
     kpj = jax.random.fold_in(kpj, fx[0] * 31 + fy[0])
@@ -92,8 +91,7 @@ def _pixel_stage(scene, cam, key, R, probe_valid, g_right, g_up, g_look,
     pf = jnp.stack([fx, fy], axis=-1).astype(jnp.float32) + jit_f
     fo, fd = camlib.generate_rays(cam, pf, kind=cam_kind)
     kf = jax.random.fold_in(key, fx[0] * 131 + fy[0])
-    ff = probelib.find_first_nonspecular(scene, fo, fd, kf,
-                                         use_pallas=use_pallas)
+    ff = probelib.find_first_nonspecular(scene, fo, fd, kf)
     rgb, valid = iisptlib._mis_stage(
         scene, cam, R, probe_valid, g_look, g_origin, g_right, g_up,
         g_look, coords_all, n_ids, fx, fy, in_img,
@@ -105,8 +103,7 @@ def _pixel_stage(scene, cam, key, R, probe_valid, g_right, g_up, g_look,
 
 
 def task_serial_oracle(sd, hemi_size, net, scene, cam, net_vars, key,
-                       coords, fx, fy, n_ids, in_img, ts, n_shards,
-                       use_pallas: bool = False):
+                       coords, fx, fy, n_ids, in_img, ts, n_shards):
     """Single-device oracle for make_sharded_task_fn: processes the same
     shard slices sequentially with the identical data-derived keys, so
     its outputs match the mesh execution bitwise (tests/test_multichip
@@ -119,7 +116,7 @@ def task_serial_oracle(sd, hemi_size, net, scene, cam, net_vars, key,
     for i in range(n_shards):
         R_l, pv_l, gb = _probe_stage(
             scene, cam, net, net_vars, key,
-            coords[i * Pp:(i + 1) * Pp], hemi_size, use_pallas, cam_kind)
+            coords[i * Pp:(i + 1) * Pp], hemi_size, cam_kind)
         Rs.append(R_l)
         vs.append(pv_l)
         gbs.append(gb)
@@ -136,12 +133,11 @@ def task_serial_oracle(sd, hemi_size, net, scene, cam, net_vars, key,
         outs.append(_pixel_stage(
             scene, cam, key, R, probe_valid, g_right, g_up, g_look,
             g_origin, coords_all, fx[sl], fy[sl], n_ids[sl], in_img[sl],
-            ts, hemi_size, use_pallas, cam_kind, W, H))
+            ts, hemi_size, cam_kind, W, H))
     return tuple(jnp.concatenate([o[j] for o in outs]) for j in range(3))
 
 
-def make_sharded_task_fn(sd, mesh, hemi_size: int, net,
-                         use_pallas: bool = False):
+def make_sharded_task_fn(sd, mesh, hemi_size: int, net):
     """Returns f(scene, cam, net_vars, key, coords, fx, fy, n_ids, in_img,
     ts) -> (flat_idx, rgb, valid) with probes AND pixels sharded over the
     whole mesh and an explicit all_gather halo exchange between the two
@@ -157,13 +153,13 @@ def make_sharded_task_fn(sd, mesh, hemi_size: int, net,
         in_specs=(P(), P(), P(), P(), P(axes), P(axes), P(axes),
                   P(axes), P(axes), P()),
         out_specs=(P(axes), P(axes), P(axes)),
-        check_rep=False)
+        check_vma=False)
     def task_shard(scene, cam, net_vars, key, coords, fx, fy, n_ids,
                    in_img, ts):
         # ---- probe stage (local probe shard) ----
         R_l, probe_valid_l, gb = _probe_stage(
             scene, cam, net, net_vars, key, coords, hemi_size,
-            use_pallas, cam_kind)
+            cam_kind)
 
         # ---- halo exchange: gather ALL probes to every shard ----
         def gather(x):
@@ -181,7 +177,7 @@ def make_sharded_task_fn(sd, mesh, hemi_size: int, net,
         return _pixel_stage(
             scene, cam, key, R, probe_valid, g_right, g_up, g_look,
             g_origin, coords_all, fx, fy, n_ids, in_img, ts, hemi_size,
-            use_pallas, cam_kind, W, H)
+            cam_kind, W, H)
 
     return jax.jit(task_shard)
 
@@ -189,7 +185,7 @@ def make_sharded_task_fn(sd, mesh, hemi_size: int, net,
 def render_iile_sharded(sd, mesh, net_vars=None, seed: int = 0,
                         indirect_tasks: int = 4, direct_samples: int = 4,
                         hemi_size: int = 16, radius_start: float = 100.0,
-                        use_pallas: bool = False, report=None):
+                        report=None):
     """Full IILE render with every heavy stage sharded over the mesh.
     Semantics match integrators/iispt.py render_iile (same schedule, same
     estimator); sampling streams differ in shard-local shapes so the
@@ -200,7 +196,7 @@ def render_iile_sharded(sd, mesh, net_vars=None, seed: int = 0,
     from ..integrators import render as renderlib
     from ..models import iisptnet
 
-    scene, cam = renderlib.build(sd)
+    scene, cam = renderlib.build(sd, accel="bvh")
     W, H = sd.film.x_resolution, sd.film.y_resolution
     nd = mesh.devices.size
     key = jax.random.PRNGKey(seed)
@@ -212,8 +208,7 @@ def render_iile_sharded(sd, mesh, net_vars=None, seed: int = 0,
                             train=False)
 
     t0 = time.time()
-    task_fn = make_sharded_task_fn(sd, mesh, hemi_size, net,
-                                   use_pallas=use_pallas)
+    task_fn = make_sharded_task_fn(sd, mesh, hemi_size, net)
     tasks = schedlib.compute_schedule(W, H, indirect_tasks,
                                       radius_start=radius_start)
     G = schedlib.NUMBER_TILES + 1
@@ -259,7 +254,7 @@ def render_iile_sharded(sd, mesh, net_vars=None, seed: int = 0,
     # ---- direct progressive passes, row-sharded over the mesh ----
     dcfg = pathlib_.PathConfig(
         max_depth=sd.integrator.max_depth, nee=True, nee_all=True,
-        direct_only=True, use_pallas=use_pallas)
+        direct_only=True)
     drun = shardedlib.sharded_render_pass(sd, mesh, cfg=dcfg)
     dir_film = filmlib.new_film(H, W)
     for p in range(direct_samples):

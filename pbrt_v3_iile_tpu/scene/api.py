@@ -4,7 +4,7 @@ Mirrors the reference's pbrt* API surface and graphics-state stack
 (ref: src/core/api.cpp: pbrtAttributeBegin/End, CTM stack, RenderOptions,
 GraphicsState), but instead of building a C++ primitive DAG it flattens
 everything to world-space numpy arrays (triangle soup + analytic spheres +
-SoA material/light tables) ready for device upload — the TPU-native scene
+SoA material/light tables) ready for device upload — the flat-array scene
 representation.
 """
 

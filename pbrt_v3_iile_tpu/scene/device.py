@@ -1,6 +1,6 @@
 """Device scene: every scene entity as flat jnp arrays (one pytree).
 
-This is the TPU-native replacement for the reference's pointer-based
+This is the flat-array replacement for the reference's pointer-based
 Scene/Primitive/Material/Light object graph (ref: src/core/scene.h:49,
 primitive.h, light.h): geometry, BVH, materials and lights are
 structure-of-arrays so any wavefront stage is a gather + vector op.
@@ -50,16 +50,9 @@ class DeviceScene(NamedTuple):
     node_count: jnp.ndarray  # (M,) i32 (0 = interior)
     node_axis: jnp.ndarray   # (M,) i32
     # --- packed hot-path layouts (one gather per traversal step) ---
-    # int32 storage: float bit patterns survive TPU denormal flushing,
-    # raw small ints stored as f32 would not
+    # int32 rows: the float bounds ride as bit patterns next to the ids
     nodes_packed: jnp.ndarray  # (M,8) i32: bits(min3), bits(max3), right, count<<2|axis
-    nodes_bounds: jnp.ndarray  # (M,8) f32: min3, max3, pad2 (pallas scalar reads)
     tris_packed: jnp.ndarray   # (T,12) f32: p0, e1, e2, pad
-    # transposed lane-major copies for the Pallas kernel: (8, M) tiles
-    # without lane padding ((M, 8) in VMEM would pad 8 -> 128 lanes, 16x)
-    nodes_t: jnp.ndarray       # (8, Mp) i32
-    bounds_t: jnp.ndarray      # (8, Mp) f32
-    tris_t: jnp.ndarray        # (12, Tp) f32
     # --- analytic spheres (emitters) ---
     sph_center: jnp.ndarray  # (S,3)
     sph_radius: jnp.ndarray  # (S,)
@@ -171,19 +164,14 @@ class DeviceScene(NamedTuple):
     # TabulatedBSSRDF's radial profile role; integrators/path.py) ---
     mat_sss_d: jnp.ndarray = jnp.zeros((1, 3), jnp.float32)  # (M,3)
     # --- fused-kernel cluster tables (ops/clusters_pallas.ClusterPack);
-    # the TPU production traversal path (None on CPU-only builds) ---
+    # None unless the scene is built for the GPU cluster traversal ---
     clusters: object = None
 
 
 def _build_clusters_maybe(flat, p, e1, e2, with_clusters):
-    """Packed cluster tables for the fused Pallas traversal
+    """Packed cluster tables for the fused GPU traversal
     (ops/clusters_pallas.py); p/e1/e2 are the BVH-ordered device
-    triangles so cluster prim offsets ARE scene triangle ids.
-    with_clusters None = auto: build whenever a non-CPU backend is
-    attached (the TPU fast path needs them; CPU uses the XLA walker)."""
-    if with_clusters is None:
-        import jax
-        with_clusters = jax.default_backend() not in ("cpu",)
+    triangles so cluster prim offsets ARE scene triangle ids."""
     if not with_clusters:
         return None
     from ..ops import clusters_pallas as cluster_lib
@@ -238,7 +226,7 @@ def _motion_steps(sd):
 
 
 def build_device_scene(sd: apilib.SceneDesc, use_native_bvh: bool = True,
-                       with_clusters: bool = None) -> DeviceScene:
+                       with_clusters: bool = False) -> DeviceScene:
     # ---- concatenate triangle blocks ----
     if sd.tri_blocks:
         p = np.concatenate([b["p"] for b in sd.tri_blocks], axis=0)
@@ -620,7 +608,7 @@ def build_device_scene(sd: apilib.SceneDesc, use_native_bvh: bool = True,
     # estimated unoccluded contribution ~ power / max(d^2, diag^2/4) to
     # the voxel center (distant/infinite lights count as constant).
     # Precomputed densely at build time (the reference fills its hash
-    # table lazily per thread; on TPU a dense table is a single gather).
+    # table lazily per thread; here a dense table is a single gather).
     if sd.integrator.light_strategy == "spatial" and nl > 0:
         ext = np.maximum(wmax - wmin, 1e-6)
         max_ext = float(ext.max())
@@ -665,8 +653,8 @@ def build_device_scene(sd: apilib.SceneDesc, use_native_bvh: bool = True,
         spat_pdf = lpdf[None, :]
         spat_cdf = lcdf[None, :]
         spat_res = np.ones(3, np.int32)
-    # pad rows to >=8 lanes: TPU gathers are row-granular; 2-float rows
-    # gather pathologically (same rationale as the (M,8) nodes_packed)
+    # pad rows to a multiple of 8 floats: row gathers of 32-byte-aligned
+    # rows (same layout rule as the (M,8) nodes_packed)
     Lp = ((max(spat_pdf.shape[1], 1) + 7) // 8) * 8
     if spat_pdf.shape[1] < Lp:
         pad_n = Lp - spat_pdf.shape[1]
@@ -681,8 +669,7 @@ def build_device_scene(sd: apilib.SceneDesc, use_native_bvh: bool = True,
     i32 = lambda a: jnp.asarray(a, dtype=jnp.int32)
 
     # packed hot-path layouts: the traversal loop fetches one contiguous
-    # row per step instead of five scattered gathers (TPU gathers are
-    # row-granular)
+    # row per step instead of five scattered gathers
     M_nodes = flat.node_min.shape[0]
     nodes_packed = np.zeros((M_nodes, 8), np.int32)
     nodes_packed[:, 0:3] = flat.node_min.astype(np.float32).view(np.int32)
@@ -690,22 +677,11 @@ def build_device_scene(sd: apilib.SceneDesc, use_native_bvh: bool = True,
     nodes_packed[:, 6] = flat.node_right.astype(np.int32)
     nodes_packed[:, 7] = ((flat.node_count.astype(np.int32) << 2)
                           | flat.node_axis.astype(np.int32))
-    nodes_bounds = np.zeros((M_nodes, 8), np.float32)
-    nodes_bounds[:, 0:3] = flat.node_min
-    nodes_bounds[:, 3:6] = flat.node_max
-    Mp = ((M_nodes + 127) // 128) * 128
-    nodes_t = np.zeros((8, Mp), np.int32)
-    nodes_t[:, :M_nodes] = nodes_packed.T
-    bounds_t = np.zeros((8, Mp), np.float32)
-    bounds_t[:, :M_nodes] = nodes_bounds.T
     T_tris = p.shape[0]
     tris_packed = np.zeros((T_tris, 12), np.float32)
     tris_packed[:, 0:3] = p[:, 0]
     tris_packed[:, 3:6] = e1
     tris_packed[:, 6:9] = e2
-    Tp = ((T_tris + 127) // 128) * 128
-    tris_t = np.zeros((12, Tp), np.float32)
-    tris_t[:, :T_tris] = tris_packed.T
     if has_motion:
         Ms = p_steps.shape[0]
         tris_steps_packed = np.zeros((Ms, T_tris, 12), np.float32)
@@ -746,9 +722,7 @@ def build_device_scene(sd: apilib.SceneDesc, use_native_bvh: bool = True,
         node_min=f32(flat.node_min), node_max=f32(flat.node_max),
         node_right=i32(flat.node_right), node_count=i32(flat.node_count),
         node_axis=i32(flat.node_axis),
-        nodes_packed=i32(nodes_packed), nodes_bounds=f32(nodes_bounds),
-        tris_packed=f32(tris_packed),
-        nodes_t=i32(nodes_t), bounds_t=f32(bounds_t), tris_t=f32(tris_t),
+        nodes_packed=i32(nodes_packed), tris_packed=f32(tris_packed),
         sph_center=f32(sph_center), sph_radius=f32(sph_radius),
         sph_mat=i32(sph_mat), sph_light=i32(sph_light),
         n_spheres=i32(len(sd.spheres)),

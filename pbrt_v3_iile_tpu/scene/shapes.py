@@ -1,7 +1,7 @@
 """Shape -> world-space triangle soup conversion (host-side, numpy).
 
 Replaces the reference's per-shape plugin classes (ref: src/shapes/*): on
-TPU every surface is triangles in one flat array; quadrics are tessellated
+the device every surface is triangles in one flat array; quadrics are tessellated
 at build time (analytic sphere *lights* stay analytic for cone sampling —
 see scene/api.py).
 """

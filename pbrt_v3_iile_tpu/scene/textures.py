@@ -6,7 +6,7 @@ wrinkled, marble, windy) with a SoA texture table evaluated by masked
 vector ops; image maps live in one resampled atlas with an N_MIPS-level
 pyramid per image for trilinear filtering (ref: core/mipmap.h
 MIPMap::Lookup(st, width) — level = nLevels-1+log2(width), bilinear at
-the two bracketing levels, lerp).  TPU restructuring: every level is
+the two bracketing levels, lerp).  Flat-array restructuring: every level is
 stored BLOCK-REPLICATED back to ATLAS_RES so one flat gather formula
 serves every level while the coarse-grid bilinear filter stays exact;
 the filter width comes from ray cones

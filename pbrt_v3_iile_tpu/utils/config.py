@@ -32,7 +32,7 @@ class RenderOptions:
     seed: int = 0
     max_depth: int = 5
     rr_threshold: float = 1.0
-    # --- wavefront sizing (TPU-specific; no reference analogue) ---
+    # --- wavefront sizing (device-specific; no reference analogue) ---
     rays_per_wave: int = 1 << 17       # rays per jitted wavefront launch
     spp_per_pass: int = 1              # samples-per-pixel per device pass
     # --- sharding ---

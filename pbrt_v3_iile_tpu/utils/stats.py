@@ -1,5 +1,5 @@
 """Per-stage render statistics (the stats.h:279 counter + stats.cpp:207
-profiler role, TPU-style).
+profiler role, wavefront-style).
 
 Two mechanisms, mirroring the reference's pair:
 1. Counters/stage wall-clock: a process-global registry filled by the

@@ -1,8 +1,8 @@
 """Vector math over (..., 3) jnp arrays.
 
-TPU-first replacement for the reference's Vector3f/Point3f/Normal3f class
+Array-first replacement for the reference's Vector3f/Point3f/Normal3f class
 hierarchy (ref: src/core/geometry.h:869 and friends).  There are no vector
-classes: everything is a batched array, so the whole wavefront is one VPU
+classes: everything is a batched array, so the whole wavefront is one vector
 operation.
 """
 

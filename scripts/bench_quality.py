@@ -3,9 +3,9 @@
 The analogue of the reference's headline measurement
 (ref: tools/charts_whiteroom.py:7-48, charts_mbed1.py — PSNR/entropy of
 IILE at T indirect tasks vs path at N spp against a converged render).
-Writes QUALITY_r{round}.json at the repo root and prints a summary.
+Writes a QUALITY json at the repo root and prints a summary.
 
-Run on the chip:  python scripts/bench_quality.py [--res 256]
+Run on a GPU:  python scripts/bench_quality.py [--res 256]
 """
 
 import argparse
@@ -13,8 +13,6 @@ import json
 import os
 import sys
 import time
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -103,12 +101,10 @@ def main():
     sd.integrator.kind = "path"
     scene, cam = renderlib.build(sd)
     pcfg = renderlib.make_integrator_config(sd)
-    if pcfg.accel == "clusters" and not pcfg.staged:
+    if pcfg.accel == "clusters":
         pcfg = pcfg._replace(
             compact_schedule=(1.0, 1.0, 0.5, 0.25, 0.25, 0.125))
-    prun = renderlib.render_pass_fn(sd, pcfg)
-    if not pcfg.staged:
-        prun = jax.jit(prun, static_argnums=(4,))
+    prun = jax.jit(renderlib.render_pass_fn(sd, pcfg))
     pkey = jax.random.PRNGKey(11)
     L0, _, _ = prun(scene, cam, pkey, 0, 0)   # compile + warm
     L0.block_until_ready()

@@ -11,7 +11,6 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 sys.path.insert(0, ROOT)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
 
 import numpy as np
 
@@ -40,6 +39,9 @@ def blur4(x):
 def main():
     from pbrt_v3_iile_tpu.scene import api as apilib
     from pbrt_v3_iile_tpu.integrators import render as renderlib
+    from pbrt_v3_iile_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     for fx, scene, integ, res, spp in CASES:
         path = os.path.join(GOLDEN, fx)

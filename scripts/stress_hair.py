@@ -90,7 +90,7 @@ WorldEnd
     if "--render" in sys.argv:
         cfg = renderlib.make_integrator_config(sd)
         import jax, jax.numpy as jnp
-        run = jax.jit(renderlib.render_pass_fn(sd, cfg), static_argnums=(4,))
+        run = jax.jit(renderlib.render_pass_fn(sd, cfg))
         key = jax.random.PRNGKey(0)
         L, _, aux = run(scene, cam, key, 0)
         float(jnp.sum(L))

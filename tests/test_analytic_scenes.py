@@ -116,8 +116,7 @@ def test_matrix_mlt_sphere():
     tolerance — Metropolis normalization is itself Monte Carlo)."""
     sd = _gi_scene("random", "mlt", 3)
     from pbrt_v3_iile_tpu.integrators import mlt as mltlib
-    img, st = mltlib.render_mlt(sd, mutations_per_pixel=64, seed=0,
-                                use_pallas=False)
+    img, st = mltlib.render_mlt(sd, mutations_per_pixel=64, seed=0)
     assert abs(float(img.mean()) - 0.875) < 0.1, img.mean()
 
 

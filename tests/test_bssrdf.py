@@ -46,7 +46,7 @@ def test_material_build_keeps_subsurface_kind():
     m = sd.materials[-1]
     assert m.kind == apilib.MAT_SUBSURFACE
     assert m.sss_d is not None and (m.sss_d > 0).all()
-    cfg = renderlib.make_integrator_config(sd, use_pallas=False)
+    cfg = renderlib.make_integrator_config(sd)
     assert cfg.has_subsurface
 
 

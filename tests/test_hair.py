@@ -121,8 +121,7 @@ def test_hair_material_in_scene_renders():
     WorldEnd
     """
     sd = apilib.load_scene_string(scene_text)
-    img, _ = renderlib.render(sd, spp=4, use_pallas=False,
-                              use_native_bvh=False)
+    img, _ = renderlib.render(sd, spp=4, use_native_bvh=False)
     img = np.asarray(img)
     assert np.all(np.isfinite(img))
     assert img.max() > 0.0

@@ -67,21 +67,6 @@ def test_bvh_matches_brute_force(tri_scene):
             assert abs(ht[i] - bt) < 1e-3 * max(1.0, bt)
 
 
-def test_pallas_matches_xla(tri_scene):
-    from pbrt_v3_iile_tpu.ops import intersect_pallas as ipl
-
-    scene, _ = tri_scene
-    o, d = _rays(2048, seed=2)
-    tmax = jnp.full(2048, 1e30, jnp.float32)
-    ref = isect.intersect_bvh(scene, jnp.asarray(o), jnp.asarray(d), tmax)
-    got = ipl.intersect_bvh_pallas(scene, jnp.asarray(o), jnp.asarray(d),
-                                   tmax, interpret=True)
-    assert (np.asarray(ref.prim >= 0) == np.asarray(got.prim >= 0)).all()
-    both = np.asarray(ref.valid & got.valid)
-    assert np.allclose(np.asarray(ref.t)[both], np.asarray(got.t)[both],
-                       atol=1e-4, rtol=1e-5)
-
-
 def test_anyhit_occlusion(tri_scene):
     scene, tris = tri_scene
     o, d = _rays(256, seed=3)

@@ -82,10 +82,8 @@ def test_kdtree_render_matches_bvh():
     sd_k = apilib.load_scene_string(
         _random_soup_scene(n_tris=40) % 'Accelerator "kdtree"')
     assert sd_k.accelerator == "kdtree"
-    img_b, _ = renderlib.render(sd_b, spp=2, use_pallas=False,
-                                use_native_bvh=False)
-    img_k, _ = renderlib.render(sd_k, spp=2, use_pallas=False,
-                                use_native_bvh=False)
+    img_b, _ = renderlib.render(sd_b, spp=2, use_native_bvh=False)
+    img_k, _ = renderlib.render(sd_k, spp=2, use_native_bvh=False)
     np.testing.assert_allclose(np.asarray(img_k), np.asarray(img_b),
                                rtol=2e-3, atol=2e-4)
 

@@ -148,8 +148,7 @@ def test_render_with_imagemap_still_works():
         WorldEnd
         """
         sd = apilib.load_scene_string(scene)
-        img, _ = renderlib.render(sd, spp=2, use_pallas=False,
-                                  use_native_bvh=False)
+        img, _ = renderlib.render(sd, spp=2, use_native_bvh=False)
         img = np.asarray(img)
         assert np.isfinite(img).all()
         assert img.mean() > 0.01  # lit, textured

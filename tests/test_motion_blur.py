@@ -125,9 +125,9 @@ def test_motion_blur_render_smears():
     Translate 1.5 0 0
     ActiveTransform All"""
     img_s, _ = renderlib.render(apilib.load_scene_string(static), spp=8,
-                                use_pallas=False, use_native_bvh=False)
+                                use_native_bvh=False)
     img_a, _ = renderlib.render(apilib.load_scene_string(animated), spp=8,
-                                use_pallas=False, use_native_bvh=False)
+                                use_native_bvh=False)
     cols_s = int((np.asarray(img_s).sum(axis=(0, 2)) > 1e-5).sum())
     cols_a = int((np.asarray(img_a).sum(axis=(0, 2)) > 1e-5).sum())
     assert cols_a > cols_s + 2, (cols_s, cols_a)
@@ -165,9 +165,9 @@ def test_object_motion_blur_smears():
     assert sd_a.has_motion
     assert sd_a.camera.cam_to_world_end is None  # camera is static
     img_s, _ = renderlib.render(apilib.load_scene_string(static), spp=8,
-                                use_pallas=False, use_native_bvh=False)
+                                use_native_bvh=False)
     img_a, _ = renderlib.render(sd_a, spp=8,
-                                use_pallas=False, use_native_bvh=False)
+                                use_native_bvh=False)
     cols_s = int((np.asarray(img_s).sum(axis=(0, 2)) > 1e-5).sum())
     cols_a = int((np.asarray(img_a).sum(axis=(0, 2)) > 1e-5).sum())
     assert cols_a > cols_s + 2, (cols_s, cols_a)

@@ -102,8 +102,7 @@ def test_sharded_iile_pipeline():
     assert np.isfinite(comb).all() and comb.mean() > 0
 
     comb1, dir1, ind1, _ = iisptlib.render_iile(
-        sd, indirect_tasks=1, direct_samples=2, hemi_size=8,
-        use_pallas=False)
+        sd, indirect_tasks=1, direct_samples=2, hemi_size=8)
     # direct component is deterministic per pass keying differences only;
     # compare at the distribution level
     assert abs(direct.mean() - dir1.mean()) / max(dir1.mean(), 1e-9) < 0.15

@@ -86,9 +86,13 @@ WorldEnd
     assert mat.kind == apilib.MAT_MATTE
 
 
-def test_killeroo_scene_parses():
-    sd = apilib.load_scene("/root/reference/scenes/killeroo-simple.pbrt")
-    assert sd.n_triangles > 10000  # two loop-subdivided killeroos + walls
-    assert len(sd.spheres) == 1
-    assert len(sd.lights) == 1
-    assert sd.film.x_resolution == 700
+def test_atrium_scene_parses():
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scenes", "atrium.pbrt")
+    sd = apilib.load_scene(path)
+    assert sd.n_triangles > 10000  # PLY furniture + two rooms
+    assert len(sd.spheres) == 0
+    assert len(sd.lights) == 3     # sun, sky and the lamp's area light
+    assert sd.film.x_resolution == 512
+    assert sd.integrator.max_depth == 6

@@ -5,6 +5,7 @@ transforms')."""
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from pbrt_v3_iile_tpu.models import transforms as nnx
 from pbrt_v3_iile_tpu.models import iisptnet
@@ -93,3 +94,38 @@ def test_example_from_maps():
     assert x.shape == (8, 8, 7)
     assert y.shape == (8, 8, 3)
     assert np.isfinite(np.asarray(x)).all()
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_iisptnet_matches_flax_golden(train):
+    """The plain-lax U-Net reproduces the earlier flax.linen module's
+    output on a seeded input (golden written by that module: k=4,
+    (2,16,16,7) input, random BatchNorm affine and running statistics),
+    in eval mode and in train mode with its running-stat update."""
+    import os
+
+    from pbrt_v3_iile_tpu.ml import train as trainlib
+
+    z = np.load(os.path.join(os.path.dirname(__file__), "golden",
+                             "iisptnet_k4_flax.npz"))
+    tree = trainlib._unflatten_tree(
+        {k: z[k] for k in z.files if "/" in k})
+    variables = {"params": tree["params"],
+                 "batch_stats": tree["batch_stats"]}
+    net = iisptnet.IISPTNet(k=4)
+    x = jnp.asarray(z["x"])
+    if train:
+        y, upd = net.apply(variables, x, train=True,
+                           mutable=["batch_stats"])
+        np.testing.assert_allclose(np.asarray(y), z["y_train"],
+                                   rtol=1e-5, atol=1e-6)
+        for name, st in tree["updated_stats"].items():
+            for k in ("mean", "var"):
+                np.testing.assert_allclose(
+                    np.asarray(upd["batch_stats"][name][k]),
+                    np.asarray(st[k]), rtol=1e-5, atol=1e-6)
+    else:
+        y = net.apply(variables, x, train=False)
+        np.testing.assert_allclose(np.asarray(y), z["y_eval"],
+                                   rtol=1e-5, atol=1e-6)
+
